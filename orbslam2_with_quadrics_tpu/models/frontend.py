@@ -3,7 +3,7 @@
 Replaces Frame's construction work (reference src/Frame.cc:61-228):
 extraction, undistortion and (for stereo) left-right matching, producing a
 fixed-capacity ``FrameFeatures``. The reference's 64x48 occupancy grid
-(AssignFeaturesToGrid) has no TPU equivalent because matching is a dense
+(AssignFeaturesToGrid) has no equivalent here because matching is a dense
 masked argmin (see ops/matching.py).
 """
 

@@ -1,6 +1,6 @@
 """Keyframe-rate mapping: triangulate, fuse, cull, local BA.
 
-TPU-native rebuild of the LocalMapping thread's pipeline
+Array-native rebuild of the LocalMapping thread's pipeline
 (reference src/LocalMapping.cc:47-112): each stage is a pure jitted
 function MapState -> MapState; the host orchestrator calls them in the
 same order the reference's thread loop does (ProcessNewKeyFrame ->
@@ -659,33 +659,20 @@ def run_local_ba(m: ms.MapState, kf_id, Kc, bf, inv_sigma2_tab, window: int = 16
     )
     # dense-Schur direct solve: the reduced camera system here is tiny
     # (C = window+1+boundary <= ~50 cameras), so building S densely and
-    # Cholesky-solving beats ~30 sequential CG sweeps per LM iteration
-    # on a latency-bound single chip (ops/ba.py ba_solve_dense — its
-    # planar layout + one-hot MXU reductions are TPU-specific wins;
-    # XLA:CPU materializes the one-hot operands, so CPU traces take the
-    # segment-sum PCG path instead — trace-time host decision).
-    if jax.default_backend() != "cpu":
-        n_loc = min(P, 8192)
-        # exact solves converge in far fewer LM steps than g2o's
-        # damped-CG 5+10 schedule needed; the edge table is cam-major
-        # [C, N], so per-camera reductions are scatter-free (cam_grid)
-        prob, _ = ba.ba_solve_dense(
-            prob, n_iters=4, n_local_pts=n_loc, use_huber=True,
-            cam_grid=(C, N),
-        )
-        _, inl = ba.edge_chi2(prob)
-        prob = prob._replace(valid=prob.valid * inl.astype(jnp.float32))
-        prob, cost = ba.ba_solve_dense(
-            prob, n_iters=min(n_iters, 6), n_local_pts=n_loc,
-            use_huber=False, cam_grid=(C, N),
-        )
-    else:
-        prob, _ = ba.ba_solve(prob, n_iters=4, cg_iters=40, use_huber=True)
-        _, inl = ba.edge_chi2(prob)
-        prob = prob._replace(valid=prob.valid * inl.astype(jnp.float32))
-        prob, cost = ba.ba_solve(
-            prob, n_iters=min(n_iters, 6), cg_iters=40, use_huber=False
-        )
+    # Cholesky-solving replaces ~40 sequential CG sweeps per LM iteration
+    # (ops/ba.py ba_solve_dense). Exact solves converge in far fewer LM
+    # steps than g2o's damped-CG 5+10 schedule needed; the edge table is
+    # cam-major [C, N], so per-camera reductions are scatter-free (cam_grid)
+    n_loc = min(P, 8192)
+    prob, _ = ba.ba_solve_dense(
+        prob, n_iters=4, n_local_pts=n_loc, use_huber=True, cam_grid=(C, N),
+    )
+    _, inl = ba.edge_chi2(prob)
+    prob = prob._replace(valid=prob.valid * inl.astype(jnp.float32))
+    prob, cost = ba.ba_solve_dense(
+        prob, n_iters=min(n_iters, 6), n_local_pts=n_loc, use_huber=False,
+        cam_grid=(C, N),
+    )
 
     # scatter back: window poses (free, deduped cams only — masked rows
     # are dropped so duplicate slots cannot race), all points

@@ -1,8 +1,8 @@
-"""Struct-of-arrays SLAM map state (the TPU replacement for the reference's
+"""Struct-of-arrays SLAM map state (the array replacement for the reference's
 pointer graph of Frame/KeyFrame/MapPoint/Map objects).
 
 The reference's map is a heap of mutually-referencing objects guarded by
-per-object mutexes (src/KeyFrame.h, src/MapPoint.h, src/Map.h). On TPU the
+per-object mutexes (src/KeyFrame.h, src/MapPoint.h, src/Map.h). Here the
 map is one immutable pytree of fixed-capacity padded arrays; "insert" bumps
 a counter and scatters a row, "erase" clears a validity bit
 (SetBadFlag -> mask, src/KeyFrame.cc:459-551, src/MapPoint.cc:151-215),
@@ -11,7 +11,7 @@ and every cross-reference is an integer index:
 - keyframe k's keypoint n observes map point ``kf_obs_point[k, n]`` (-1 if
   none) — this one table IS the observation graph both directions
   (replaces MapPoint::mObservations + KeyFrame::mvpMapPoints).
-- the covisibility graph is never stored: it is one MXU matmul
+- the covisibility graph is never stored: it is one matmul
   ``A @ A.T`` over the binary observation matrix, recomputed on demand
   (replaces KeyFrame::UpdateConnections, src/KeyFrame.cc:295-385).
 
@@ -23,7 +23,6 @@ mMutexMapUpdate protocol (SURVEY.md §2.3).
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -123,7 +122,7 @@ def observation_matrix(m: MapState, dtype=jnp.bfloat16):
 
 
 def covisibility(m: MapState):
-    """[K,K] int32 covisibility weights (shared-point counts) as one MXU
+    """[K,K] int32 covisibility weights (shared-point counts) as one
     matmul — replaces KeyFrame::UpdateConnections (src/KeyFrame.cc:295-385)."""
     A = observation_matrix(m)
     W = jax.lax.dot_general(
@@ -216,7 +215,7 @@ def insert_points(m: MapState, pos, desc, first_kf, want):
 
     ``want`` [B] bool marks rows to actually allocate. Slots are assigned
     compactly from n_pt; overflow rows get -1 (dropped, like the reference
-    dropping points when... it never does — capacity is the TPU trade).
+    dropping points when... it never does — capacity is the fixed-shape trade).
     """
     P = m.pt_pos.shape[0]
     B = pos.shape[0]
@@ -330,108 +329,6 @@ def update_point_stats(m: MapState, scale_factors):
         pt_normal=jnp.where(has[:, None], normal, m.pt_normal),
         pt_max_dist=jnp.where(has, 1.2 * max_dist, m.pt_max_dist),
         pt_min_dist=jnp.where(has, 0.8 * min_dist, m.pt_min_dist),
-    )
-
-
-@partial(jax.jit, static_argnames=("n_neighbors", "n_local"))
-def update_point_stats_local(
-    m: MapState, scale_factors, kf_id, n_neighbors: int = 10,
-    n_local: int = 4096, W=None,
-):
-    """:func:`update_point_stats` restricted to the points TOUCHED by the
-    newest keyframe's neighborhood (the reference likewise refreshes only
-    affected MapPoints, src/MapPoint.cc:242-371 called per-point from the
-    mapping pass — the full-pool recompute cost ~35 ms/keyframe at
-    K=256/P=32k, dominated by segment-sum scatters into [P] segments).
-
-    Touched = points observed by ``kf_id`` or its top covisible
-    neighbors, compacted into L slots. Every reduction is ONE
-    [L, K*N] x [K*N, D] one-hot MXU matmul over the FULL observation
-    table — exact over all observations of each touched point (TPU
-    scatters serialize; one-hot matmuls measured 13-60x faster, see
-    ops/ba.py). The representative descriptor here is the bitwise
-    MAJORITY (Hamming-central by construction) rather than the medoid
-    the full-pool path selects — an intentional simplification that
-    drops a segment-min scatter; both deviate from the reference's
-    min-median-Hamming pick with the same intent.
-    """
-    K, N = m.kf_obs_point.shape
-    P = m.pt_pos.shape[0]
-    L = n_local
-
-    if W is None:
-        W = covisibility(m)
-    nb_w, nb_ids = jax.lax.top_k(W[kf_id], min(n_neighbors, K))
-    cams = jnp.concatenate(
-        [jnp.asarray([kf_id], jnp.int32), nb_ids.astype(jnp.int32)]
-    )
-    cam_ok = jnp.concatenate([jnp.asarray([True]), nb_w > 0])
-    t_rows = m.kf_obs_point[cams]
-    t_mask = (
-        (t_rows >= 0) & m.kf_kp_valid[cams]
-        & (cam_ok & m.kf_valid[cams])[:, None]
-    )
-    touched = jnp.unique(
-        jnp.where(t_mask, t_rows, P).reshape(-1), size=L, fill_value=P
-    )
-    loc_of = jnp.full((P + 1,), L, jnp.int32)
-    loc_of = loc_of.at[touched].set(jnp.arange(L, dtype=jnp.int32))
-    loc_of = loc_of.at[P].set(L)
-
-    obs = m.kf_obs_point
-    mask = (obs >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
-    ploc = loc_of[jnp.where(mask, obs, P)].reshape(-1)       # [K*N]
-
-    # per-observation value columns: [bits(256) | normal(3) | dist | lvl | 1]
-    desc = m.kf_desc.reshape(K * N, 8)
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    bits = (
-        (desc[:, :, None] >> shifts[None, None, :]) & jnp.uint32(1)
-    ).astype(jnp.float32).reshape(K * N, 256)
-    pcl = jnp.clip(obs, 0, P - 1).reshape(-1)
-    centers = jnp.repeat(camera_centers(m), N, axis=0)
-    vec = m.pt_pos[pcl] - centers
-    dist = jnp.linalg.norm(vec, axis=-1, keepdims=True)
-    nrm = vec / jnp.maximum(dist, 1e-9)
-    lvl = m.kf_level.reshape(K * N, 1).astype(jnp.float32)
-    X = jnp.concatenate(
-        [bits, nrm, dist, lvl, jnp.ones((K * N, 1), jnp.float32)], axis=-1
-    )                                                        # [K*N, 262]
-
-    onehot = (
-        ploc[None, :] == jnp.arange(L, dtype=jnp.int32)[:, None]
-    ).astype(jnp.float32)                                    # [L, K*N]
-    red = jax.lax.dot_general(
-        onehot, X, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )                                                        # [L, 262]
-
-    cnt = red[:, 261]
-    has = cnt > 0
-    maj = red[:, :256] > 0.5 * jnp.maximum(cnt, 1.0)[:, None]
-    maj_desc = jnp.sum(
-        maj.reshape(L, 8, 32).astype(jnp.uint32) << shifts[None, None, :],
-        axis=-1, dtype=jnp.uint32,
-    )                                                        # [L,8]
-    normal = red[:, 256:259]
-    normal = normal / jnp.maximum(
-        jnp.linalg.norm(normal, axis=-1, keepdims=True), 1e-9
-    )
-    mean_dist = red[:, 259] / jnp.maximum(cnt, 1.0)
-    mean_lvl = red[:, 260] / jnp.maximum(cnt, 1.0)
-    sf = scale_factors[
-        jnp.clip(mean_lvl.astype(jnp.int32), 0, scale_factors.shape[0] - 1)
-    ]
-    max_dist = mean_dist * sf
-    n_levels = scale_factors.shape[0]
-    min_dist = max_dist / scale_factors[n_levels - 1]
-
-    tgt = jnp.where(has, touched, P)                         # fill -> drop
-    return m._replace(
-        pt_desc=m.pt_desc.at[tgt].set(maj_desc, mode="drop"),
-        pt_normal=m.pt_normal.at[tgt].set(normal, mode="drop"),
-        pt_max_dist=m.pt_max_dist.at[tgt].set(1.2 * max_dist, mode="drop"),
-        pt_min_dist=m.pt_min_dist.at[tgt].set(0.8 * min_dist, mode="drop"),
     )
 
 

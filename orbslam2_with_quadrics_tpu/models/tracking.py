@@ -1,6 +1,6 @@
 """Per-frame tracking: motion-model match -> pose opt -> local-map track.
 
-TPU-native rebuild of the reference Tracking thread's per-frame work
+Array-native rebuild of the reference Tracking thread's per-frame work
 (src/Tracking.cc:267-506): the whole frame update — two guided matching
 passes and two pose optimizations — is a single jitted call on fixed-shape
 arrays. The reference's UpdateLocalKeyFrames/UpdateLocalPoints pointer
@@ -48,10 +48,9 @@ def select_local_points(
 
     ``obs_A``: optional precomputed [K,P] binary observation matrix
     (``map_state.observation_matrix``). With it, both the keyframe vote and
-    the point union are single MXU matvecs; without it they fall back to a
-    gather-sum + a K*N-element scatter, which costs ~2 ms/frame on TPU
-    (scatter is serialized) — the matrix only changes at keyframe rate, so
-    the caller should maintain it across frames.
+    the point union are single matvecs; without it they fall back to a
+    gather-sum + a K*N-element scatter — the matrix only changes at
+    keyframe rate, so the caller should maintain it across frames.
     """
     K, N = m.kf_obs_point.shape
     P = m.pt_pos.shape[0]
@@ -92,8 +91,8 @@ def select_local_points(
         pmask = pmask.at[sel_obs].set(True)[:P] & m.pt_valid
     # indices of the selected points as a fixed-size list: top_k over a
     # key that ranks selected points by ascending index (jnp.nonzero with
-    # a size= pad lowers to a serialized scatter chain on TPU; top_k over
-    # [P] is a single fast kernel and yields the same ascending order)
+    # a size= pad lowers to a scatter chain; top_k over [P] is a single
+    # kernel and yields the same ascending order)
     key = jnp.where(pmask, jnp.float32(2 * P) - jnp.arange(P, dtype=jnp.float32),
                     -jnp.arange(P, dtype=jnp.float32))
     topv, topi = jax.lax.top_k(key, min(n_local_pt, P))

@@ -22,9 +22,16 @@ _lib = None
 
 
 def _build():
-    subprocess.run(
-        ["make", "-C", _DIR, "-s"], check=True, capture_output=True
-    )
+    """Build the library from source unless another process just did:
+    the file lock serializes concurrent first uses (test workers)."""
+    import fcntl
+
+    with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _stale():
+            subprocess.run(
+                ["make", "-C", _DIR, "-s"], check=True, capture_output=True
+            )
 
 
 def _stale() -> bool:

@@ -1,10 +1,10 @@
 """Two-view monocular initialization: parallel H/F RANSAC + reconstruction.
 
-TPU-native rebuild of the reference ``Initializer`` (src/Initializer.cc):
+Array-native rebuild of the reference ``Initializer`` (src/Initializer.cc):
 the reference races a homography thread against a fundamental-matrix thread
 over 200 shared 8-point RANSAC sets (src/Initializer.cc:78-118); here both
 model families are a single vmapped batch of 200 hypothesis solves — the
-embarrassing parallelism the reference faked with 2 threads is real on TPU.
+embarrassing parallelism the reference faked with 2 threads is real on the device.
 
 - 8-point DLT for H and F with Hartley normalization
   (ComputeH21/ComputeF21/Normalize, src/Initializer.cc:266-334,749-778)

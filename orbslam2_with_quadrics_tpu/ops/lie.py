@@ -1,6 +1,6 @@
 """SO3 / SE3 / Sim3 tangent-space operations on quaternion poses.
 
-TPU-native replacement for the reference's g2o types layer
+Array-native replacement for the reference's g2o types layer
 (Thirdparty/g2o/g2o/types/se3quat.h, sim3.h and the expmap vertices in
 types_six_dof_expmap.h / types_seven_dof_expmap.h): poses are flat arrays,
 every op is a pure function that broadcasts over leading batch dimensions,
@@ -18,7 +18,7 @@ Conventions
 - Sim3 tangent = 7-vector ``[omega(3), upsilon(3), sigma]``.
 
 All trig uses Taylor fallbacks near theta=0 so the ops are safely
-differentiable and float32-stable on TPU.
+differentiable and float32-stable on an accelerator.
 """
 
 from __future__ import annotations
@@ -110,9 +110,9 @@ def quat_to_matrix(q):
 
     Written as outer/structure-tensor products (R = I + 2w [u]x + 2 [u]x^2
     with [u]x^2 = u u^T - (u.u) I) rather than the 13-product component
-    form: on TPU, per-component scalar extracts + restack cost ~2-4 us
-    each in cross-register traffic, and this conversion sits at the entry
-    of every pose solve.
+    form: per-component scalar extracts + restack become many small ops
+    that do not fuse, and this conversion sits at the entry of every pose
+    solve.
     """
     w = q[..., :1, None]  # [...,1,1]
     u = q[..., 1:]
@@ -129,8 +129,8 @@ def matrix_to_quat(m):
 
     The four candidate quaternions are linear in the matrix entries, so
     they are produced by ONE constant [4,4,10] tensor contraction against
-    [vec(R); 1] instead of 9 scalar extracts + 16 stacks (same TPU
-    latency rationale as quat_to_matrix)."""
+    [vec(R); 1] instead of 9 scalar extracts + 16 stacks (same latency
+    rationale as quat_to_matrix)."""
     v = jnp.concatenate(
         [
             m.reshape(m.shape[:-2] + (9,)),
@@ -282,9 +282,9 @@ def se3_retract(T, xi):
     Mathematically identical to ``se3_compose(se3_exp(xi), T)`` but written
     as scalar-indexed arithmetic with a single final stack: the generic
     composition expands to ~50 small stack/cross/einsum HLOs that cannot
-    fuse, costing ~75 us per call on TPU — and retract sits inside every
-    sequential LM chain (pose opt runs 20 of them per frame). This form
-    compiles to one fusion (~2 us). Same Taylor fallbacks as
+    fuse — and retract sits inside every sequential LM chain (pose opt
+    runs 20 of them per frame). This form compiles to one fusion. Same
+    Taylor fallbacks as
     so3_exp_quat/_so3_left_jacobian.
     """
     wx, wy, wz = xi[..., 0], xi[..., 1], xi[..., 2]

@@ -1,14 +1,16 @@
 """Descriptor matching kernels (Hamming popcount + masked dense search).
 
-TPU-native rebuild of ``ORBmatcher`` (reference src/ORBmatcher.cc). The
+Array-native rebuild of ``ORBmatcher`` (reference src/ORBmatcher.cc). The
 reference accelerates candidate lookup with a 64x48 feature grid
 (src/Frame.cc:230-245) and BoW feature-vector buckets because scalar CPUs
-must avoid O(N*M) work; on TPU the dense masked distance matrix IS the fast
-path (a few million popcounts on the VPU per frame), so every search
+must avoid O(N*M) work; on an accelerator the dense masked distance matrix
+is the fast path (a few million popcounts per frame), so every search
 variant is one masked argmin over a [queries x keypoints] matrix:
 
 - DescriptorDistance -> ``hamming_matrix`` via lax.population_count
-  (reference's SSE popcount bithack, src/ORBmatcher.cc:1647-1663)
+  (reference's SSE popcount bithack, src/ORBmatcher.cc:1647-1663), and
+  the same distances as a bit matmul (``hamming_matrix_matmul``) for the
+  guided search
 - SearchByProjection (all 4 overloads) -> ``match_by_projection``
   (src/ORBmatcher.cc:45-129, 1328-1470)
 - SearchForInitialization -> ``match_windowed`` (src/ORBmatcher.cc:405-520)
@@ -41,12 +43,10 @@ def hamming_matrix(desc_a, desc_b):
     return jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)
 
 
-def hamming_matrix_mxu(desc_a, desc_b):
-    """MXU variant: unpack to ±0/1 bits and matmul.
-
-    dist = 256 - bits_a . bits_b - (1-bits_a) . (1-bits_b); expressed as one
-    [Na,256]x[256,Nb] bf16 matmul plus rank-1 corrections. Used when both
-    sides are large (e.g. vocabulary training / loop retrieval sweeps).
+def hamming_matrix_matmul(desc_a, desc_b):
+    """:func:`hamming_matrix` as a matrix product: unpack to 0/1 bits, then
+    dist = |a| + |b| - 2 a.b as one [Na,256]x[256,Nb] bf16 matmul with f32
+    accumulation plus rank-1 corrections (exact: 0/1 operands, sums <= 256).
     """
     def unpack(d):
         shifts = jnp.arange(32, dtype=jnp.uint32)
@@ -78,6 +78,28 @@ def best_two(dist, valid_mask):
     d2 = d.at[jnp.arange(d.shape[0]), best_idx].set(_BIG)
     second = jnp.min(d2, axis=1)
     return best_idx, best, second
+
+
+def masked_hamming_best2(
+    qdesc, quv, qrad, qlvl, qvalid, tdesc, tuv, tlvl, tvalid, level_tol: int = 1
+):
+    """Best and second-best Hamming distance of each query over the
+    targets inside its projection window: |du|,|dv| <= qrad and
+    |level difference| <= level_tol. Same contract as ``best_two``.
+    Returns (best_idx [Q], best [Q], second [Q]).
+
+    The distances come from the bit matmul, which ran faster than the
+    popcount form inside the tracking program on the H100."""
+    du = jnp.abs(quv[:, 0:1] - tuv[None, :, 0])
+    dv = jnp.abs(quv[:, 1:2] - tuv[None, :, 1])
+    mask = (
+        (du <= qrad[:, None])
+        & (dv <= qrad[:, None])
+        & (jnp.abs(tlvl[None, :] - qlvl[:, None]) <= level_tol)
+        & qvalid[:, None].astype(bool)
+        & tvalid[None, :].astype(bool)
+    )
+    return best_two(hamming_matrix_matmul(qdesc, tdesc), mask)
 
 
 def _resolve_one_to_one(ok, best_idx, best, n_targets):
@@ -158,11 +180,7 @@ def match_by_projection(
     if r.ndim == 0:
         r = jnp.full((Q,), r)
 
-    # fused Pallas kernel on TPU (streams target tiles through VMEM);
-    # dense masked argmin elsewhere
-    from . import pallas_kernels
-
-    best_idx, best, second = pallas_kernels.masked_hamming_best2(
+    best_idx, best, second = masked_hamming_best2(
         query_desc, proj_uv, r, pred_level, proj_valid,
         feats_desc, feats_uv, feats_level, feats_valid,
         level_tol=level_tol,

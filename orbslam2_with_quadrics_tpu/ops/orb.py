@@ -1,6 +1,6 @@
 """ORB feature front-end: pyramid, FAST, orientation, rotated BRIEF.
 
-TPU-native rebuild of the reference's ``ORBextractor``
+Array-native rebuild of the reference's ``ORBextractor``
 (src/ORBextractor.cc): where the reference walks pixels with OpenCV's
 scalar FAST and a sequential quadtree, this module computes every stage as
 dense, fixed-shape array ops so one jitted call per frame yields N padded,
@@ -120,10 +120,11 @@ def fast_score(img, arc_len: int = 9):
     shifted = jnp.stack(
         [jnp.roll(img, (-int(dy), -int(dx)), axis=(-2, -1)) for dy, dx in _CIRCLE]
     )  # [16,...,H,W] (batches over leading axes of img)
-    # the window-min/max accumulation dominates HBM traffic (the [16,H,W]
-    # stack is re-read every pass): run it in bf16 (image contrasts are
-    # 8-bit scale, so bf16's ~2^-8 relative step only perturbs near-tie
-    # scores) and accumulate windows in log depth (4 passes instead of 8)
+    # the window-min/max accumulation dominates memory traffic (the
+    # [16,H,W] stack is re-read every pass): run it in bf16 (image
+    # contrasts are 8-bit scale, so bf16's ~2^-8 relative step only
+    # perturbs near-tie scores) and accumulate windows in log depth (4
+    # passes instead of 8)
     diff = (shifted - img[None]).astype(jnp.bfloat16)
     # circular window-min of length 9 = min(win8, roll(d, -8)),
     # win8 from doubling: 1 -> 2 -> 4 -> 8
@@ -279,33 +280,30 @@ def brief_descriptors(img_blur, yx, angle, valid):
 
 
 # ---------------------------------------------------------------------------
-# production extraction: per-level detection + patch-matmul descriptors
+# production extraction: per-level detection + per-keypoint patches
 #
 # Detection (pyramid/FAST/NMS/top-k) runs per level on the natural level
-# sizes — batching the levels onto a zero-padded common canvas was tried
-# and is 6x SLOWER (the pad waste multiplies the FAST roll-chain's HBM
-# traffic by ~3x across 8 levels: 14.7 ms vs 2.3 ms measured in-loop).
+# sizes: batching the levels onto a zero-padded common canvas makes FAST
+# pay for the padding in every pass of its roll chain.
 #
-# Descriptors are where the reference path dies on TPU: ic_angle/BRIEF do
-# [N,709]+[N,512] scattered image gathers that run at ~86 M elem/s
-# (~12.5 ms/frame). The production path instead:
+# Descriptors avoid the reference path's scattered full-image gathers
+# ([N,709] for ic_angle plus [N,512] for BRIEF). Instead the production
+# path:
 #   1. stacks the pyramid into a [L, H0, W0] canvas (pads are pure data
-#      movement — nothing computes over the padding) purely so ONE vmapped
-#      dynamic_slice can cut a 37x37 RAW patch per keypoint across all
-#      levels (contiguous rows, ~4x faster than scattered gathers),
+#      movement: nothing computes over the padding) so ONE vmapped
+#      dynamic_slice cuts a 37x37 RAW patch per keypoint across all
+#      levels (contiguous rows),
 #   2. takes IC-angle moments as a [N,961]@[961,2] matmul of the 31x31
 #      patch centers (exact reference semantics, raw image, circular
-#      window — IC_Angle, src/ORBextractor.cc:77-104),
+#      window: IC_Angle, src/ORBextractor.cc:77-104),
 #   3. runs the 7x7 Gaussian inside the patch (the 3px margin covers every
 #      BRIEF tap's blur support, so in-patch blur == full-image blur at
 #      all taps), and
-#   4. looks up the continuously-rotated BRIEF taps inside the patch via
-#      two separable one-hot MXU contractions — an exact gather-as-matmul
-#      (TPU gathers run at ~80 M elem/s; this runs at matmul speed).
-#      Total ~1.7 ms/frame vs ~12.5 ms for the gather path.
+#   4. looks up the continuously-rotated BRIEF taps inside the flat
+#      blurred patch with one take_along_axis.
 # Descriptors match the per-level reference path above bit-for-bit (same
 # pattern, same per-keypoint continuous rotation and rounding, same blur
-# value at every tap) — verified max Hamming distance 0.
+# value at every tap).
 # ---------------------------------------------------------------------------
 
 
@@ -334,7 +332,7 @@ def extract(
     One trace; returns ``Features`` padded to ``n_features`` with rows
     grouped by level at the per-level budgets
     (reference ORBextractor::operator(), src/ORBextractor.cc:1043-1105).
-    See the section comment above for the TPU batching design.
+    See the section comment above for the batching design.
     """
     h, w = img.shape
     shapes = pyramid_shapes(h, w, n_levels, scale)
@@ -371,58 +369,19 @@ def extract(
     rs = r + 3  # +3 for the in-patch blur support
     side = 2 * rs + 1
 
-    if jax.default_backend() == "cpu":
-        # CPU: vmapped dynamic_slice is the fast path (XLA:CPU lowers it
-        # to memcpy loops; the matmul variant below would cost ~6 GFLOP)
-        canvas = jnp.stack(
-            [
-                jnp.pad(pyr[l], ((0, hc - shapes[l][0]), (0, wc - shapes[l][1])))
-                for l in range(n_levels)
-            ]
-        )
+    canvas = jnp.stack(
+        [
+            jnp.pad(pyr[l], ((0, hc - shapes[l][0]), (0, wc - shapes[l][1])))
+            for l in range(n_levels)
+        ]
+    )
 
-        def slice_patch(l, y, x):
-            return jax.lax.dynamic_slice(
-                canvas, (l, y - rs, x - rs), (1, side, side)
-            )[0]
+    def slice_patch(l, y, x):
+        return jax.lax.dynamic_slice(
+            canvas, (l, y - rs, x - rs), (1, side, side)
+        )[0]
 
-        raw = jax.vmap(slice_patch)(lvl_ids, kp_yc, kp_xc)   # [N,37,37]
-    else:
-        # TPU: batched dynamic_slice lowers to an element gather —
-        # measured 2.1 ms/frame, the single hottest op of the whole
-        # tracking step. The same selection as per-level one-hot row and
-        # column MXU contractions (exact: each output sums exactly one
-        # f32 value) runs in 0.50 ms. Per level because the per-level
-        # keypoint ranges are static (counts), so no padding enters the
-        # matmuls.
-        iota_s = jnp.arange(side, dtype=jnp.int32)
-        raws = []
-        off = 0
-        for l in range(n_levels):
-            k = counts[l]
-            y_l = kp_yc[off : off + k]
-            x_l = kp_xc[off : off + k]
-            off += k
-            h_l, w_l = shapes[l]
-            ys_ = y_l[:, None] - rs + iota_s[None, :]        # [k,37]
-            xs_ = x_l[:, None] - rs + iota_s[None, :]
-            rowoh = (
-                ys_[:, :, None]
-                == jnp.arange(h_l, dtype=jnp.int32)[None, None, :]
-            ).astype(img.dtype)                              # [k,37,h]
-            band = jax.lax.dot_general(
-                rowoh, pyr[l], (((2,), (0,)), ((), ()))
-            )                                                # [k,37,w]
-            coloh = (
-                xs_[:, None, :]
-                == jnp.arange(w_l, dtype=jnp.int32)[None, :, None]
-            ).astype(img.dtype)                              # [k,w,37]
-            raws.append(
-                jax.lax.dot_general(
-                    band, coloh, (((2,), (1,)), ((0,), (0,)))
-                )                                            # [k,37,37]
-            )
-        raw = jnp.concatenate(raws, axis=0)                  # [N,37,37]
+    raw = jax.vmap(slice_patch)(lvl_ids, kp_yc, kp_xc)       # [N,37,37]
     flat_raw = raw[:, 3:-3, 3:-3].reshape(raw.shape[0], -1)  # [N,961] raw 31x31
 
     # --- IC angle: two-moment matmul on the RAW patch
@@ -435,28 +394,17 @@ def extract(
     flat = blur31.reshape(raw.shape[0], -1)                  # [N,961]
 
     # --- rotated BRIEF: continuous per-keypoint rotation, looked up inside
-    # the 31x31 blurred patch (in-patch take_along_axis instead of the
-    # full-image gather; identical values since patches carry the exact
-    # blurred pixels) ---
+    # the 31x31 blurred patch (identical values to the full-image gather,
+    # since patches carry the exact blurred pixels) ---
     pat = jnp.asarray(brief_pattern())                       # [512,2] (x, y)
     ca, sa = jnp.cos(ang)[:, None], jnp.sin(ang)[:, None]
     px, py = pat[None, :, 0], pat[None, :, 1]
     rx = jnp.round(px * ca - py * sa).astype(jnp.int32)      # [N,512]
     ry = jnp.round(px * sa + py * ca).astype(jnp.int32)
-    # in-patch lookup expressed as two separable one-hot contractions on
-    # the MXU instead of a gather: TPU gathers run at ~80 M elem/s
-    # (6.8 ms/frame for [N,512]) while this exact reformulation — select
-    # the column by a [512,31]x[31,31] batched matmul, then the row by an
-    # elementwise mask+reduce — costs ~0.5 GMAC and streams at matmul
-    # speed. One-hot selection of exact integers is exact in f32.
     side = 2 * r + 1
-    iota = jnp.arange(side, dtype=jnp.int32)
     oy = jnp.clip(ry + r, 0, side - 1)
     ox = jnp.clip(rx + r, 0, side - 1)
-    coloh = (ox[:, :, None] == iota[None, None, :]).astype(flat.dtype)  # [N,512,X]
-    rowoh = (oy[:, :, None] == iota[None, None, :]).astype(flat.dtype)  # [N,512,Y]
-    sel_y = jnp.einsum("nyx,njx->njy", blur31, coloh)                   # [N,512,Y]
-    vals = jnp.sum(sel_y * rowoh, axis=-1)                              # [N,512]
+    vals = jnp.take_along_axis(flat, oy * side + ox, axis=1)            # [N,512]
     bits = (vals[:, 0::2] < vals[:, 1::2]).astype(jnp.uint32)
     shifts = jnp.arange(32, dtype=jnp.uint32)
     desc = jnp.sum(

@@ -1,7 +1,7 @@
 """Perspective-n-Point RANSAC for relocalization.
 
 Replaces ``PnPsolver`` (reference src/PnPsolver.cc — EPnP inside adaptive
-RANSAC). TPU-native design: a vmapped batch of EPnP 4-point minimal-set
+RANSAC). Array-native design: a vmapped batch of EPnP 4-point minimal-set
 hypotheses scored in parallel (the reference's minSet=4,
 src/PnPsolver.h:67-68), followed by an EPnP refit on the inlier set
 (reference PnPsolver::Refine) — fixed hypothesis count instead of adaptive

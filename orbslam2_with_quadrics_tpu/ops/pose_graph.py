@@ -1,6 +1,6 @@
 """Sim3 pose-graph (essential graph) optimization.
 
-TPU-native rebuild of ``Optimizer::OptimizeEssentialGraph``
+Array-native rebuild of ``Optimizer::OptimizeEssentialGraph``
 (reference src/Optimizer.cc:781-1044): keyframe poses are lifted to Sim3,
 relative-pose edges (spanning tree, loop edges, strong covisibility) are
 optimized with Levenberg-Marquardt. Edge residual matches g2o's EdgeSim3:
@@ -14,7 +14,7 @@ per-edge 7x7 products, segment-sum back), preconditioned CG with the
 block-diagonal [K,7,7] inverse. Memory is O(K*49 + E*98) instead of the
 dense O(49*K^2), so KITTI-00-scale graphs (K ~ 2000, where a dense
 [7K,7K] Hessian would be ~800 MB and an O(K^3) solve) stay cheap; at
-small K the edge sweeps are still a handful of fused MXU matmuls.
+small K the edge sweeps are still a handful of fused matmuls.
 """
 
 from __future__ import annotations

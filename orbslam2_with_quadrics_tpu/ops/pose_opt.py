@@ -1,30 +1,29 @@
 """Motion-only pose optimization (the per-frame hot solver).
 
-TPU-native rebuild of ``Optimizer::PoseOptimization``
+Array-native rebuild of ``Optimizer::PoseOptimization``
 (reference src/Optimizer.cc:239-451): a unary-edge Levenberg-Marquardt solve
 of one SE3 camera pose against N fixed map points, run as
 ``rounds`` x ``iters`` with chi-square inlier re-classification between
 rounds (gates 5.991 mono / 7.815 stereo) and the Huber kernel dropped for
 the final rounds — the reference's schedule (4 rounds x 10 iters,
 src/Optimizer.cc:358-446) with the inner count trimmed to 5: each LM step
-is a sequential dependency on TPU, and warm-started GN converges in <=3
+is a sequential dependency, and warm-started GN converges in <=3
 steps, so extra inner iterations cost latency and buy nothing (validated:
 identical inlier counts and pose error on the test scenes).
 
 Perf structure (the whole solve is one jitted fori_loop, no host trips):
 
 - The pose is carried through the LM chain as (R [3,3], t [3]) and every
-  step is expressed in tensordot/matmul/elementwise form. TPU punishes
-  scalar extracts + re-stacks (~2-4 us each for cross-register traffic,
-  measured ~30 us for an extract-7-scalars-and-restack body), so the
-  quaternion form — natural for storage — is converted once at entry and
-  once at exit, never inside the chain.
+  step is expressed in tensordot/matmul/elementwise form. Scalar
+  extracts + re-stacks become small unfused ops on the sequential
+  chain, so the quaternion form — natural for storage — is converted
+  once at entry and once at exit, never inside the chain.
 - Each LM iteration runs ONE fused evaluation: (H, b, robust cost) at the
   candidate pose from a single projection/Jacobian pass, with deferred
   accept/reject (rejection re-damps the incumbent's stored system).
 - The damped 6x6 normal system is solved by a fully unrolled Cholesky
   (``solve_spd_small``): ``jnp.linalg.solve`` lowers to pivoted LU with
-  dynamic control flow, tens of us per call; the unrolled form is ~1.5 us.
+  dynamic control flow; the unrolled form fuses into straight-line code.
 """
 
 from __future__ import annotations
@@ -40,10 +39,9 @@ from . import lie, residuals
 def solve_spd_small(H, b, eps: float = 1e-12):
     """Solve H x = b for small SPD H (6x6 here) via fully unrolled Cholesky.
 
-    ``jnp.linalg.solve`` lowers to pivoted LU — dynamic control flow that
-    costs tens of microseconds per call on TPU; inside the 20-step
-    sequential LM chain of pose_optimization that was the single largest
-    per-frame latency term. The damped normal-equation matrix is SPD by
+    ``jnp.linalg.solve`` lowers to pivoted LU — dynamic control flow
+    inside the 20-step sequential LM chain of pose_optimization. The
+    damped normal-equation matrix is SPD by
     construction, so an unrolled Cholesky (~140 fused scalar ops, no
     pivoting, no loops) is exact and latency-free.
     """

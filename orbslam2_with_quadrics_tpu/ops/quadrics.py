@@ -1,6 +1,6 @@
 """Dual-quadric object landmarks: SVD init, conic projection, joint BA.
 
-TPU-native rebuild of the fork's quadric_slam extension — the part the
+Array-native rebuild of the fork's quadric_slam extension — the part the
 reference left unfinished (SURVEY.md §2 'state of the quadric extension'):
 
 - 9-dof ellipsoid = SE3 pose + 3 axis scales; dual form
@@ -227,7 +227,7 @@ def quadric_ba_solve(prob: QuadricBAProblem, Kc, n_iters: int = 10, cg_iters: in
     """Joint LM over cameras + points + quadrics.
 
     Points are Schur-marginalized exactly as in ops/ba.py; quadric blocks
-    (9-dof) join the cameras in the reduced CG system — the direct TPU
+    (9-dof) join the cameras in the reduced CG system — the direct
     analogue of adding VertexQuadric to the g2o graph with points
     marginalized (the fork's intended-but-unwired optimizer).
     """

@@ -1,6 +1,6 @@
 """Reprojection residuals and analytic Jacobians.
 
-The TPU-native equivalent of g2o's projection edge types
+The array-native equivalent of g2o's projection edge types
 (Thirdparty/g2o/g2o/types/types_six_dof_expmap.h:80-196:
 ``EdgeSE3ProjectXYZ``, ``EdgeStereoSE3ProjectXYZ`` and their OnlyPose
 variants). One unified 3-row residual covers mono and stereo: row 2 (the

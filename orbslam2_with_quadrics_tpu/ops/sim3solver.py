@@ -1,6 +1,6 @@
 """Sim3 estimation: Horn closed-form alignment + vmapped RANSAC + LM polish.
 
-TPU-native rebuild of ``Sim3Solver`` (reference src/Sim3Solver.cc) and
+Array-native rebuild of ``Sim3Solver`` (reference src/Sim3Solver.cc) and
 ``Optimizer::OptimizeSim3`` (src/Optimizer.cc:1046+):
 
 - Horn 1987 absolute orientation on 3-point minimal sets, quaternion from

@@ -1,6 +1,6 @@
 """Binary bag-of-words vocabulary: hierarchical k-medians, transform, score.
 
-TPU-native replacement for DBoW2's ``TemplatedVocabulary`` + ``FORB``
+Array-native replacement for DBoW2's ``TemplatedVocabulary`` + ``FORB``
 (reference Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:135-241,
 FORB.h:38-47): the vocabulary is a per-level array of binary centers; the
 image->BoW transform is a batched tree descent where each level is one
@@ -406,7 +406,7 @@ def sparse_bow(word, idf):
     (word ids [N] sorted unique, -1 pad; values [N]). The sparse analogue
     of :func:`bow_vector` for vocabularies too large for dense [V] vectors
     (the standard ORBvoc has 1M words; a dense [K,V] database would be
-    ~1 GB of HBM for nothing — frames carry <= N distinct words)."""
+    ~1 GB of device memory for nothing — frames carry <= N distinct words)."""
     N = word.shape[0]
     big = jnp.iinfo(jnp.int32).max
     # map pads (-1) to +inf so unique's end-padding keeps uid sorted

@@ -11,15 +11,16 @@ from __future__ import annotations
 
 import dataclasses
 
-import yaml
-
 from ..models.frontend import FrontendConfig
 
 
 def load_settings(path: str) -> dict:
+    import re
+
+    import yaml  # optional dependency: settings files only
+
     with open(path) as f:
         text = f.read()
-    import re
 
     # strip OpenCV's "%YAML:1.0" directive and !!opencv-matrix tags which
     # PyYAML rejects (matrices become plain {rows, cols, dt, data} dicts);

@@ -10,10 +10,54 @@ from __future__ import annotations
 
 import numpy as np
 
-try:
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+
+def _resize_nearest(layer: np.ndarray, size: int) -> np.ndarray:
+    """Nearest-neighbour upscale of a square layer to [size, size]
+    (source index floor(i * n / size), as cv2.INTER_NEAREST)."""
+    idx = (np.arange(size) * layer.shape[0]) // size
+    return layer[idx][:, idx]
+
+
+def _fill_disc(img: np.ndarray, x: int, y: int, r: int, value: float):
+    """Paint the filled disc |p - (x, y)| <= r into ``img`` in place."""
+    dy, dx = np.mgrid[-r : r + 1, -r : r + 1]
+    ys, xs = dy + y, dx + x
+    inside = (
+        (dy * dy + dx * dx <= r * r)
+        & (ys >= 0) & (ys < img.shape[0]) & (xs >= 0) & (xs < img.shape[1])
+    )
+    img[ys[inside], xs[inside]] = value
+
+
+def _warp_perspective(src, H, h, w, wrap=True, border=0.0):
+    """Bilinear perspective warp: out[y, x] = src(H^-1 (x, y, 1)), with H
+    mapping source pixels to output pixels. Outside the source, ``wrap``
+    tiles it periodically; otherwise taps read ``border``."""
+    Hi = np.linalg.inv(H)
+    xs = np.arange(w, dtype=np.float64)
+    ys = np.arange(h, dtype=np.float64)[:, None]
+    den = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]
+    x = (Hi[0, 0] * xs + Hi[0, 1] * ys + Hi[0, 2]) / den
+    y = (Hi[1, 0] * xs + Hi[1, 1] * ys + Hi[1, 2]) / den
+    x0 = np.floor(x)
+    y0 = np.floor(y)
+    fx = (x - x0).astype(np.float32)
+    fy = (y - y0).astype(np.float32)
+    x0 = x0.astype(np.int64)
+    y0 = y0.astype(np.int64)
+    sh, sw = src.shape
+    flat = src.reshape(-1)
+
+    def tap(yy, xx):
+        if wrap:
+            return flat[(yy % sh) * sw + (xx % sw)]
+        ok = (yy >= 0) & (yy < sh) & (xx >= 0) & (xx < sw)
+        v = flat[np.clip(yy, 0, sh - 1) * sw + np.clip(xx, 0, sw - 1)]
+        return np.where(ok, v, np.float32(border))
+
+    top = tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx
+    bot = tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx
+    return (top * (1 - fy) + bot * fy).astype(np.float32)
 
 
 def _texture(size: int, seed: int) -> np.ndarray:
@@ -29,14 +73,14 @@ def _texture(size: int, seed: int) -> np.ndarray:
     sc = 8
     while sc <= max(64, size // 32):
         layer = rng.rand(sc, sc).astype(np.float32)
-        img += cv2.resize(layer, (size, size), interpolation=cv2.INTER_NEAREST)
+        img += _resize_nearest(layer, size)
         sc *= 2
     img = (img - img.min()) / (img.max() - img.min())
     # sprinkle high-contrast blobs at constant density per area
     for _ in range(max(size, size * size // 2048)):
         x, y = rng.randint(8, size - 8, 2)
         r = rng.randint(2, 6)
-        cv2.circle(img, (x, y), r, float(rng.rand()), -1)
+        _fill_disc(img, x, y, r, float(rng.rand()))
     return (img * 255.0).astype(np.float32)
 
 
@@ -89,165 +133,144 @@ def planar_stream(
     (img [H,W] float32, T_cw 4x4) at a time so multi-thousand-frame
     sequences never materialize in memory (4,096 frames at 640x480 would
     be ~5 GB)."""
-    assert cv2 is not None, "cv2 required for synthetic rendering"
     noise_rng = np.random.RandomState(seed + 4242) if noise > 0 else None
-    cx, cy = w / 2.0, h / 2.0
-    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    K = np.array([[fx, 0, w / 2.0], [0, fy, h / 2.0], [0, 0, 1.0]])
     tex = _texture(tex_size, seed)
-    s = tex_size / (2 * plane_half)
-    S = np.array([[s, 0, tex_size / 2.0], [0, s, tex_size / 2.0], [0, 0, 1.0]])
     relief_tex = _texture(512, seed + 77) if relief else None
-    relief_half, relief_z = 1.2, 0.8
-    Sr = np.array(
-        [[512 / (2 * relief_half), 0, 256.0], [0, 512 / (2 * relief_half), 256.0], [0, 0, 1.0]]
-    )
-
     for t in range(n_frames):
-        u = t / max(n_frames - 1, 1)
-        if motion == "strafe":
-            # sideways translation + slight yaw and depth change
-            tx = 1.2 * u
-            ty = 0.15 * np.sin(2 * np.pi * u)
-            tz = 2.5 + 0.3 * np.sin(np.pi * u)
-            yaw = 0.15 * u
-            pitch = 0.05 * np.sin(2 * np.pi * u)
-        elif motion == "orbit_loop":
-            # closed loop: circle above the plane, returns to start
-            ang = 2 * np.pi * u
-            tx = 0.8 * np.sin(ang)
-            ty = 0.8 * (1 - np.cos(ang))
-            tz = 2.5
-            yaw = 0.10 * np.sin(ang)
-            pitch = 0.0
-        elif motion == "orbit_big":
-            # LARGE circle (radius plane_half/2, C-infinity) that leaves
-            # the start's view entirely and closes at the end, with a 12%
-            # dwell at home so the loop detector sees several consistent
-            # keyframes of the revisited place. The topological loop for
-            # organic loop-closure tests: mid-orbit views share nothing
-            # with home, so with a bounded local-map window the return is
-            # reconnectable only by place recognition.
-            R = 0.5 * plane_half
-            ang = 2 * np.pi * min(u / 0.88, 1.0)
-            dwell = max(u - 0.88, 0.0) / 0.12
-            tx = R * np.sin(ang) + 0.06 * dwell
-            ty = R * (1 - np.cos(ang))
-            tz = 2.5
-            yaw = 0.0
-            pitch = 0.0
-        elif motion == "out_and_back":
-            # long excursion that leaves the start area entirely, then
-            # returns: early map points leave view mid-sequence, so the
-            # return is only reconnectable by loop closure
-            # reach >> view half-width disconnects the map without hitting
-            # the texture's wrap period (2*plane_half); use plane_half >= 8.
-            # C1-smooth profile (constant-velocity prediction must track):
-            # sin^2 ramps out and back by u=0.85, then dwells at home so
-            # the loop detector has keyframes of overlap with the start.
-            reach = plane_half
-            v = min(u / 0.85, 1.0)
-            tx = reach * np.sin(np.pi * v) ** 2
-            tx += 0.05 * max(u - 0.85, 0.0) / 0.15
-            ty = 0.1 * np.sin(4 * np.pi * u)
-            tz = 2.5
-            yaw = 0.0
-            pitch = 0.0
-        elif motion == "figure8":
-            # two circular lobes through DISTINCT territory (upper then
-            # lower), each returning to home: two genuine topological
-            # loops. Cycloidal easing (a = 2*pi*v - sin(2*pi*v)) gives
-            # zero velocity at every junction, so the constant-velocity
-            # motion model survives the lobe/dwell transitions.
-            R8 = plane_half / 3.0
-
-            def _circ(v):
-                return 2 * np.pi * v - np.sin(2 * np.pi * v)
-
-            if u < 0.42:
-                a = _circ(u / 0.42)
-                tx = R8 * np.sin(a)
-                ty = R8 * (1 - np.cos(a))
-            elif u < 0.5:
-                tx = 0.04 * (u - 0.42) / 0.08
-                ty = 0.0
-            elif u < 0.92:
-                a = _circ((u - 0.5) / 0.42)
-                tx = 0.04 + R8 * np.sin(a)
-                ty = -R8 * (1 - np.cos(a))
-            else:
-                tx = 0.04 + 0.04 * (u - 0.92) / 0.08
-                ty = 0.0
-            tz = 2.5
-            yaw = 0.0
-            pitch = 0.0
-        elif motion == "double_loop":
-            # figure-eight: two excursions in OPPOSITE directions with a
-            # return to home between them — two independent loop closures
-            # (the persistent-loop-edge scenario: the second essential
-            # graph must keep the first loop's correction). sin^2 ramps
-            # are C1 at the junction (u=0.5), so constant-velocity
-            # prediction tracks through it.
-            reach = plane_half
-            if u < 0.5:
-                v = u / 0.5
-                tx = reach * np.sin(np.pi * v) ** 2
-                ty = 0.08 * np.sin(4 * np.pi * v)
-            else:
-                v = (u - 0.5) / 0.5
-                tx = -reach * np.sin(np.pi * v) ** 2
-                ty = 0.08 * np.sin(4 * np.pi * v)
-            tz = 2.5
-            yaw = 0.0
-            pitch = 0.0
-        elif motion == "survey":
-            # long smooth lawn-mower sweep over a big plane: the scale
-            # stress pattern (thousands of frames, hundreds of keyframes,
-            # trajectory length >> view width). C-infinity everywhere so
-            # constant-velocity prediction tracks.
-            span = 0.75 * plane_half
-            tx = span * np.sin(2 * np.pi * 3 * u)
-            ty = (2 * u - 1) * 0.8 * span
-            tz = 2.5 + 0.2 * np.sin(2 * np.pi * 5 * u)
-            yaw = 0.1 * np.sin(2 * np.pi * u)
-            pitch = 0.03 * np.sin(2 * np.pi * 2 * u)
-        else:
-            raise ValueError(motion)
-
-        Rx = _rot_x(np.pi + pitch)  # look down at the plane (z=0 below)
-        Rz = _rot_z(yaw)
-        R_wc = Rz @ Rx          # camera->world rotation
-        C = np.array([tx, ty, tz])
-        R_cw = R_wc.T
-        t_cw = -R_cw @ C
-        # homography world-plane -> image: x_img ~ K [r1 r2 t_cw] (X,Y,1)
-        Hwi = K @ np.stack([R_cw[:, 0], R_cw[:, 1], t_cw], axis=1)
-        Hti = Hwi @ np.linalg.inv(S)
-        img = cv2.warpPerspective(
-            tex, Hti, (w, h), flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_WRAP
+        T = planar_pose(t, n_frames, motion, plane_half)
+        # sensor noise: the noise-free render tracks with so little drift
+        # that revisits re-attach by projection alone and loop closure
+        # never has anything to do; real cameras drift
+        img = render_plane(
+            tex, T, K, h, w, plane_half=plane_half, relief_tex=relief_tex,
+            noise=noise, noise_rng=noise_rng,
         )
-        if relief:
-            # raised plane z = relief_z: x ~ K [r1, r2, r3*z + t] (X,Y,1)
-            Hr = K @ np.stack(
-                [R_cw[:, 0], R_cw[:, 1], R_cw[:, 2] * relief_z + t_cw], axis=1
-            )
-            Hrt = Hr @ np.linalg.inv(Sr)
-            top = cv2.warpPerspective(
-                relief_tex, Hrt, (w, h), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
-            img = np.where(top >= 0, top, img).astype(np.float32)
-        if noise_rng is not None:
-            # sensor noise: the noise-free render tracks with so little
-            # drift that revisits re-attach by projection alone and loop
-            # closure never has anything to do; real cameras drift
-            img = np.clip(
-                img + noise_rng.randn(h, w).astype(np.float32) * noise,
-                0.0, 255.0,
-            )
-        T = np.eye(4)
-        T[:3, :3] = R_cw
-        T[:3, 3] = t_cw
         yield img, T
+
+
+def planar_pose(t: int, n_frames: int, motion: str, plane_half: float):
+    """Ground-truth T_cw (4x4) of frame ``t`` of an ``n_frames`` sequence
+    of the named camera motion over the textured plane."""
+    u = t / max(n_frames - 1, 1)
+    if motion == "strafe":
+        # sideways translation + slight yaw and depth change
+        tx = 1.2 * u
+        ty = 0.15 * np.sin(2 * np.pi * u)
+        tz = 2.5 + 0.3 * np.sin(np.pi * u)
+        yaw = 0.15 * u
+        pitch = 0.05 * np.sin(2 * np.pi * u)
+    elif motion == "orbit_loop":
+        # closed loop: circle above the plane, returns to start
+        ang = 2 * np.pi * u
+        tx = 0.8 * np.sin(ang)
+        ty = 0.8 * (1 - np.cos(ang))
+        tz = 2.5
+        yaw = 0.10 * np.sin(ang)
+        pitch = 0.0
+    elif motion == "orbit_big":
+        # LARGE circle (radius plane_half/2, C-infinity) that leaves
+        # the start's view entirely and closes at the end, with a 12%
+        # dwell at home so the loop detector sees several consistent
+        # keyframes of the revisited place. The topological loop for
+        # organic loop-closure tests: mid-orbit views share nothing
+        # with home, so with a bounded local-map window the return is
+        # reconnectable only by place recognition.
+        R = 0.5 * plane_half
+        ang = 2 * np.pi * min(u / 0.88, 1.0)
+        dwell = max(u - 0.88, 0.0) / 0.12
+        tx = R * np.sin(ang) + 0.06 * dwell
+        ty = R * (1 - np.cos(ang))
+        tz = 2.5
+        yaw = 0.0
+        pitch = 0.0
+    elif motion == "out_and_back":
+        # long excursion that leaves the start area entirely, then
+        # returns: early map points leave view mid-sequence, so the
+        # return is only reconnectable by loop closure
+        # reach >> view half-width disconnects the map without hitting
+        # the texture's wrap period (2*plane_half); use plane_half >= 8.
+        # C1-smooth profile (constant-velocity prediction must track):
+        # sin^2 ramps out and back by u=0.85, then dwells at home so
+        # the loop detector has keyframes of overlap with the start.
+        reach = plane_half
+        v = min(u / 0.85, 1.0)
+        tx = reach * np.sin(np.pi * v) ** 2
+        tx += 0.05 * max(u - 0.85, 0.0) / 0.15
+        ty = 0.1 * np.sin(4 * np.pi * u)
+        tz = 2.5
+        yaw = 0.0
+        pitch = 0.0
+    elif motion == "figure8":
+        # two circular lobes through DISTINCT territory (upper then
+        # lower), each returning to home: two genuine topological
+        # loops. Cycloidal easing (a = 2*pi*v - sin(2*pi*v)) gives
+        # zero velocity at every junction, so the constant-velocity
+        # motion model survives the lobe/dwell transitions.
+        R8 = plane_half / 3.0
+
+        def _circ(v):
+            return 2 * np.pi * v - np.sin(2 * np.pi * v)
+
+        if u < 0.42:
+            a = _circ(u / 0.42)
+            tx = R8 * np.sin(a)
+            ty = R8 * (1 - np.cos(a))
+        elif u < 0.5:
+            tx = 0.04 * (u - 0.42) / 0.08
+            ty = 0.0
+        elif u < 0.92:
+            a = _circ((u - 0.5) / 0.42)
+            tx = 0.04 + R8 * np.sin(a)
+            ty = -R8 * (1 - np.cos(a))
+        else:
+            tx = 0.04 + 0.04 * (u - 0.92) / 0.08
+            ty = 0.0
+        tz = 2.5
+        yaw = 0.0
+        pitch = 0.0
+    elif motion == "double_loop":
+        # figure-eight: two excursions in OPPOSITE directions with a
+        # return to home between them — two independent loop closures
+        # (the persistent-loop-edge scenario: the second essential
+        # graph must keep the first loop's correction). sin^2 ramps
+        # are C1 at the junction (u=0.5), so constant-velocity
+        # prediction tracks through it.
+        reach = plane_half
+        if u < 0.5:
+            v = u / 0.5
+            tx = reach * np.sin(np.pi * v) ** 2
+            ty = 0.08 * np.sin(4 * np.pi * v)
+        else:
+            v = (u - 0.5) / 0.5
+            tx = -reach * np.sin(np.pi * v) ** 2
+            ty = 0.08 * np.sin(4 * np.pi * v)
+        tz = 2.5
+        yaw = 0.0
+        pitch = 0.0
+    elif motion == "survey":
+        # long smooth lawn-mower sweep over a big plane: the scale
+        # stress pattern (thousands of frames, hundreds of keyframes,
+        # trajectory length >> view width). C-infinity everywhere so
+        # constant-velocity prediction tracks.
+        span = 0.75 * plane_half
+        tx = span * np.sin(2 * np.pi * 3 * u)
+        ty = (2 * u - 1) * 0.8 * span
+        tz = 2.5 + 0.2 * np.sin(2 * np.pi * 5 * u)
+        yaw = 0.1 * np.sin(2 * np.pi * u)
+        pitch = 0.03 * np.sin(2 * np.pi * 2 * u)
+    else:
+        raise ValueError(motion)
+
+    Rx = _rot_x(np.pi + pitch)  # look down at the plane (z=0 below)
+    Rz = _rot_z(yaw)
+    R_wc = Rz @ Rx          # camera->world rotation
+    C = np.array([tx, ty, tz])
+    R_cw = R_wc.T
+    T = np.eye(4)
+    T[:3, :3] = R_cw
+    T[:3, 3] = -R_cw @ C
+    return T
 
 
 def render_plane(tex, T_cw, K3, h, w, plane_half=3.0,
@@ -266,10 +289,7 @@ def render_plane(tex, T_cw, K3, h, w, plane_half=3.0,
     R_cw = T_cw[:3, :3]
     t_cw = T_cw[:3, 3]
     Hwi = K3 @ np.stack([R_cw[:, 0], R_cw[:, 1], t_cw], axis=1)
-    img = cv2.warpPerspective(
-        tex, Hwi @ np.linalg.inv(S), (w, h), flags=cv2.INTER_LINEAR,
-        borderMode=cv2.BORDER_WRAP,
-    )
+    img = _warp_perspective(tex, Hwi @ np.linalg.inv(S), h, w, wrap=True)
     if relief_tex is not None:
         n = relief_tex.shape[0]
         Sr = np.array(
@@ -279,10 +299,8 @@ def render_plane(tex, T_cw, K3, h, w, plane_half=3.0,
         Hr = K3 @ np.stack(
             [R_cw[:, 0], R_cw[:, 1], R_cw[:, 2] * relief_z + t_cw], axis=1
         )
-        top = cv2.warpPerspective(
-            relief_tex, Hr @ np.linalg.inv(Sr), (w, h),
-            flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT,
-            borderValue=-1.0,
+        top = _warp_perspective(
+            relief_tex, Hr @ np.linalg.inv(Sr), h, w, wrap=False, border=-1.0
         )
         img = np.where(top >= 0, top, img).astype(np.float32)
     if noise > 0 and noise_rng is not None:
@@ -379,6 +397,8 @@ def write_tum_sequence(
     Returns (settings_path, out_dir)."""
     import os
 
+    import cv2  # optional dependency: PNG writing only
+
     from .trajectory import _R_to_quat
 
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
@@ -468,6 +488,8 @@ def write_kitti_sequence(
     devkit format), and a reference-format settings YAML with
     ``Camera.bf = fx * baseline``. Returns (settings_path, out_dir)."""
     import os
+
+    import cv2  # optional dependency: PNG writing only
 
     os.makedirs(os.path.join(out_dir, "image_0"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "image_1"), exist_ok=True)

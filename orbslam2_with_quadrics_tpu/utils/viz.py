@@ -2,7 +2,7 @@
 
 Host-side, off the hot path — replaces the reference's Pangolin GUI thread
 (src/Viewer.cc, src/FrameDrawer.cc, src/MapDrawer.cc) with render-to-image
-utilities usable headless (the TPU build targets servers, not desktops):
+utilities usable headless (the accelerator build targets servers, not desktops):
 
 - ``draw_frame``: keypoint + track overlay with the reference's
   "KFs / MPs / Matches" HUD line (FrameDrawer::DrawFrame,

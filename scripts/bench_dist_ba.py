@@ -1,7 +1,7 @@
 """Distributed-BA scaling check over an N-device mesh.
 
-On real multi-chip hardware this measures ICI-scaling of the edge-sharded
-Schur/CG solver; on CPU it runs the same SPMD program over
+On several GPUs this measures the scaling of the edge-sharded Schur/CG
+solver over NVLink; on CPU it runs the same SPMD program over
 --xla_force_host_platform_device_count virtual devices, validating the
 collective structure and reporting (non-physical) wall-clock ratios.
 
@@ -15,7 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 
 import jax
 import jax.numpy as jnp

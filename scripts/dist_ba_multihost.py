@@ -1,16 +1,18 @@
-"""Multi-process distributed-BA check: N processes x M virtual CPU
-devices each, joined via jax.distributed into one global mesh, must
-produce the SAME solution as a single process with N*M devices.
+"""Multi-process distributed-BA check on the CPU only: N processes x M
+virtual CPU devices each, joined via jax.distributed into one global
+mesh, must produce the SAME solution as a single process with N*M
+devices.
 
-This is the multi-host posture test the sandbox allows (no second host
-exists): the jax.distributed handshake, the process-spanning Mesh, and
-cross-process collectives all run for real over the gRPC coordinator —
-only the transport differs from a TPU pod (TCP loopback vs ICI/DCN).
+This is a CPU rehearsal of the multi-host posture (one host): the
+jax.distributed handshake, the process-spanning Mesh, and cross-process
+collectives all run for real over the gRPC coordinator on TCP loopback.
+It never opens a GPU (every worker runs with JAX_PLATFORMS=cpu); the
+four-GPU path is ``python chip_smoke.py --dist-ba``, one process.
 
 Launcher mode (default):
     python scripts/dist_ba_multihost.py [--procs 2] [--local-devices 4]
 spawns the workers, runs the single-process reference solve, compares,
-and writes DIST_BA_MULTIHOST.json.
+and prints one JSON line.
 
 Worker mode (spawned): _DIST_BA_ROLE=worker with coordinator/pid env.
 """
@@ -110,7 +112,6 @@ def launcher(n_procs, local_devices):
         f"--xla_force_host_platform_device_count={local_devices}"
     )
     env_base["JAX_PLATFORMS"] = "cpu"
-    env_base["JAX_COMPILATION_CACHE_DIR"] = os.path.join(REPO, ".jax_cache")
     env_base["_DIST_BA_ROLE"] = "worker"
     env_base["_DIST_BA_COORD"] = "127.0.0.1:19765"
     env_base["_DIST_BA_NPROCS"] = str(n_procs)
@@ -179,8 +180,6 @@ def launcher(n_procs, local_devices):
         "pass": bool(ok),
     }
     print(json.dumps(result))
-    with open(os.path.join(REPO, "DIST_BA_MULTIHOST.json"), "w") as f:
-        json.dump(result, f, indent=1)
     return 0 if ok else 1
 
 

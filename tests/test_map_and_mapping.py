@@ -140,7 +140,7 @@ def test_local_ba_reduces_cost_on_perturbed_map():
 
 
 def test_select_local_points_matmul_matches_scatter():
-    """The obs_A (MXU matvec) fast path of tracking.select_local_points
+    """The obs_A (matvec) fast path of tracking.select_local_points
     must select the same local window as the scatter fallback."""
     from orbslam2_with_quadrics_tpu.models import tracking as tr
 

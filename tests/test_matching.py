@@ -1,6 +1,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from orbslam2_with_quadrics_tpu.ops import matching
 
@@ -29,7 +30,7 @@ def test_hamming_mxu_matches_popcount():
     a, b = rand_desc(ka, 64), rand_desc(kb, 96)
     np.testing.assert_array_equal(
         np.asarray(matching.hamming_matrix(a, b)),
-        np.asarray(matching.hamming_matrix_mxu(a, b)),
+        np.asarray(matching.hamming_matrix_matmul(a, b)),
     )
 
 
@@ -133,3 +134,33 @@ def test_rotation_consistency_keeps_dominant_rotation():
     keep = np.asarray(keep)
     assert keep[:80].mean() > 0.95
     assert keep[80:].mean() < 0.4
+
+
+@pytest.mark.parametrize("level_tol", [0, 1, 2])
+def test_masked_best_two_matches_popcount_reference(level_tol):
+    """match_by_projection's windowed search (masked_hamming_best2) equals
+    popcount distances + best_two under the same window mask."""
+    rng = np.random.RandomState(level_tol)
+    Q, N = 96, 64
+    qd = jnp.asarray(rng.randint(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32))
+    td = jnp.asarray(rng.randint(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32))
+    quv = jnp.asarray(rng.rand(Q, 2).astype(np.float32) * 100)
+    tuv = jnp.asarray(rng.rand(N, 2).astype(np.float32) * 100)
+    qrad = jnp.asarray(rng.rand(Q).astype(np.float32) * 40)
+    qlvl = jnp.asarray(rng.randint(0, 4, Q).astype(np.int32))
+    tlvl = jnp.asarray(rng.randint(0, 4, N).astype(np.int32))
+    qv = jnp.asarray(rng.rand(Q) < 0.9)
+    tv = jnp.asarray(rng.rand(N) < 0.9)
+    got = matching.masked_hamming_best2(
+        qd, quv, qrad, qlvl, qv, td, tuv, tlvl, tv, level_tol=level_tol
+    )
+    mask = (
+        (jnp.abs(quv[:, :1] - tuv[None, :, 0]) <= qrad[:, None])
+        & (jnp.abs(quv[:, 1:] - tuv[None, :, 1]) <= qrad[:, None])
+        & (jnp.abs(qlvl[:, None] - tlvl[None, :]) <= level_tol)
+        & qv[:, None] & tv[None, :]
+    )
+    want = matching.best_two(matching.hamming_matrix(qd, td), mask)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert int(jnp.sum(want[1] < (1 << 20))) > Q // 4  # windows not empty

@@ -113,7 +113,7 @@ def test_per_level_counts_sum():
 
 
 def test_extract_descriptors_match_reference_path():
-    """The production extract() (patch slice + MXU one-hot lookups) must be
+    """The production extract() (patch slice + in-patch tap gather) must be
     bit-identical to the per-level reference path (ic_angle +
     brief_descriptors on the full blurred level)."""
     rng = np.random.RandomState(0)
