@@ -308,7 +308,7 @@ def fuse_neighbors(
         # observation of a point this keyframe already sees elsewhere
         # (reference Fuse gates on pMP->IsInKeyFrame, src/ORBmatcher.cc:
         # 900-906; a double observation inflates covisibility weights
-        # and duplicates BA edges — ADVICE r03)
+        # and duplicates BA edges)
         nb_row = jax.lax.dynamic_slice_in_dim(obs_flat, nb * N, N)
         seen_in_nb = jnp.zeros((P + 1,), bool).at[
             jnp.where(nb_row >= 0, nb_row, P)
@@ -368,7 +368,7 @@ def fuse_neighbors(
         existing = obs_flat[kf_id * N + tgt_kp]
         # IsInKeyFrame gate (src/ORBmatcher.cc:900-906): the new KF may
         # already observe this neighbor point at another keypoint —
-        # adding a second row would double-count it (ADVICE r03)
+        # adding a second row would double-count it
         kf_row = jax.lax.dynamic_slice_in_dim(obs_flat, kf_id * N, N)
         seen_in_kf = jnp.zeros((P + 1,), bool).at[
             jnp.where(kf_row >= 0, kf_row, P)
@@ -447,8 +447,8 @@ def cull_keyframes(m: ms.MapState, kf_id, protect=None, W=None,
 
     obs = m.kf_obs_point
     # kf_valid mask: culled rows are cleared to -1 today, but the
-    # histogram must not depend on that invariant holding forever
-    # (ADVICE r04) — a stale invalid row would inflate n_others
+    # histogram must not depend on that invariant holding forever: a
+    # stale invalid row would inflate n_others
     has = (obs >= 0) & m.kf_kp_valid & m.kf_valid[:, None]
     # per-(point, level) observation histogram -> cumulative over level:
     # cum[p, l] = #observations of p at octave <= l (any keyframe)

@@ -289,8 +289,8 @@ def _local_point_table(prob: BAProblem, n_local_pts: int, cam_grid):
     free point) into L local slots; overflow points fall back to
     "treated as fixed this solve" — they keep contributing residuals and
     camera terms but receive no Schur coupling, no RHS term and no
-    update, which is self-consistent (ADVICE r03: the earlier version
-    dropped their coupling but kept their RHS term). The eligible set is
+    update, which is self-consistent (dropping their coupling but
+    keeping their RHS term would not be). The eligible set is
     fixed for a whole ba_solve_dense call, so this runs once per solve.
 
     Returns (loc_ids [L] point ids with P=fill, ploc [C, N] local slot

@@ -75,7 +75,7 @@ def save_system(path: str, slam) -> None:
         # this run; a pretrained vocabulary (the shipped .npz asset or an
         # ORBvoc .txt) is reloaded from its path by the receiving
         # System's config — provenance, not type, decides (the pretrained
-        # .npz also loads as a Vocabulary NamedTuple; ADVICE r03)
+        # .npz also loads as a Vocabulary NamedTuple)
         if isinstance(lcs.voc, Vocabulary) and (
             lcs.voc is not getattr(slam, "_pretrained_voc", None)
         ):

@@ -61,9 +61,8 @@ def main(n_cams=32, n_pts=8192, obs_per_cam=1024):
     n_iters = 10
     reps = 5
 
-    # honest measurement (see scripts/bench_profile.py docstring): scan
-    # over reps with the carry flowing into the problem so no rep can be
-    # deduplicated or hoisted
+    # scan over reps with the carry flowing into the problem so no rep
+    # can be deduplicated or hoisted
     @jax.jit
     def run(poses0):
         def body(c, _):

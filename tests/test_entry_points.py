@@ -67,6 +67,19 @@ def test_chip_smoke_parity_phase_on_cpu():
     chip_smoke.phase_parity(chip_smoke.TINY)
 
 
+@pytest.mark.gpu
+def test_chip_smoke_parity_phase_on_gpu(gpu_env):
+    """The parity phase at TUM widths on the card, each kept formulation
+    against its plain reference (chip_smoke.py runs it first)."""
+    code = ("import chip_smoke as s; s.phase_device(False, 1); "
+            "s.phase_parity(s.FULL)")
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=gpu_env,
+        capture_output=True, text=True, timeout=900,
+    )
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+
+
 def test_chip_smoke_dist_ba_phase_on_virtual_devices():
     """Four-device distributed BA agrees with one-device BA within the
     stated tolerance on virtual CPU devices."""

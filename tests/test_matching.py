@@ -121,6 +121,54 @@ def test_match_by_projection_levels_and_one_to_one():
     assert (idx2 == 0).sum() <= 1  # keypoint 0 claimed at most once
 
 
+def test_match_by_projection_equals_popcount_best_two():
+    """match_by_projection (bit-matmul distances) gives the matches that
+    popcount distances + best_two + the th/ratio gates + one keypoint per
+    query give, with the one-to-one resolution done in numpy."""
+    rng = np.random.RandomState(11)
+    Q, N, th, ratio = 96, 64, matching.TH_HIGH, 0.9
+    td = rng.randint(0, 2**32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    tuv = (rng.rand(N, 2) * 120).astype(np.float32)
+    tlvl = rng.randint(0, 3, N).astype(np.int32)
+    src = rng.randint(0, N, Q)  # most queries are noisy copies of a target
+    qd = td[src] ^ (1 << rng.randint(0, 32, (Q, 8))).astype(np.uint32)
+    qd[Q - 16:] = rng.randint(0, 2**32, (16, 8), dtype=np.uint64).astype(np.uint32)
+    quv = tuv[src] + rng.randn(Q, 2).astype(np.float32)
+    qlvl = tlvl[src]
+    qv, tv = rng.rand(Q) < 0.95, rng.rand(N) < 0.95
+    sf = np.asarray([1.2 ** i for i in range(3)], np.float32)
+    radius = 6.0
+
+    idx, dist = matching.match_by_projection(
+        jnp.asarray(quv), jnp.asarray(qv), jnp.asarray(qlvl), jnp.asarray(qd),
+        jnp.zeros((Q,)), jnp.asarray(tuv), jnp.asarray(tlvl), jnp.asarray(td),
+        jnp.zeros((N,)), jnp.asarray(tv), radius, jnp.asarray(sf),
+        th=th, ratio=ratio,
+    )
+
+    r = radius * sf[qlvl]
+    mask = (
+        (np.abs(quv[:, :1] - tuv[None, :, 0]) <= r[:, None])
+        & (np.abs(quv[:, 1:] - tuv[None, :, 1]) <= r[:, None])
+        & (np.abs(qlvl[:, None] - tlvl[None, :]) <= 1)
+        & qv[:, None] & tv[None, :]
+    )
+    bi, b1, b2 = (np.asarray(a) for a in matching.best_two(
+        matching.hamming_matrix(jnp.asarray(qd), jnp.asarray(td)),
+        jnp.asarray(mask)))
+    ok = (b1 <= th) & (b1 <= ratio * b2)
+    want = np.full(Q, -1)
+    for t in range(N):
+        qs = np.flatnonzero(ok & (bi == t))
+        if len(qs):
+            q = qs[np.lexsort((qs, b1[qs]))[0]]
+            want[q] = t
+    np.testing.assert_array_equal(np.asarray(idx), want)
+    np.testing.assert_array_equal(np.asarray(dist)[want >= 0], b1[want >= 0])
+    assert (want >= 0).sum() > Q // 3  # most copies matched
+    assert (np.bincount(bi[ok], minlength=N) > 1).any()  # one-to-one had work
+
+
 def test_rotation_consistency_keeps_dominant_rotation():
     n = 100
     rng = np.random.RandomState(1)
